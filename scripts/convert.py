@@ -12,12 +12,12 @@ import sys
 
 import jax
 
-from jlm_tpu.data.io import load_dataset
-from jlm_tpu.data.lexicon import Lexicon
-from jlm_tpu.decoder.engine import BeamDecoder
-from jlm_tpu.decoder.incremental import IncrementalDecoder
-from jlm_tpu.ops.quant import quantize_params
-from jlm_tpu.train import load_checkpoint
+from jlm.data.io import load_dataset
+from jlm.data.lexicon import Lexicon
+from jlm.decoder.engine import BeamDecoder
+from jlm.decoder.incremental import IncrementalDecoder
+from jlm.ops.quant import quantize_params
+from jlm.train import load_checkpoint
 
 
 def main(argv=None):

@@ -10,13 +10,13 @@ synthetic test set.
 
 import argparse
 
-from jlm_tpu.data import generate_test_set
-from jlm_tpu.data.io import load_dataset
-from jlm_tpu.data.lexicon import Lexicon
-from jlm_tpu.decoder.engine import BeamDecoder
-from jlm_tpu.eval import evaluate_conversion
-from jlm_tpu.ops.quant import quantize_params
-from jlm_tpu.train import load_checkpoint
+from jlm.data import generate_test_set
+from jlm.data.io import load_dataset
+from jlm.data.lexicon import Lexicon
+from jlm.decoder.engine import BeamDecoder
+from jlm.eval import evaluate_conversion
+from jlm.ops.quant import quantize_params
+from jlm.train import load_checkpoint
 
 
 def main(argv=None):

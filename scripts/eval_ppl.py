@@ -6,9 +6,9 @@
 
 import argparse
 
-from jlm_tpu.data.io import load_dataset
-from jlm_tpu.train import load_checkpoint
-from jlm_tpu.train.trainer import Trainer
+from jlm.data.io import load_dataset
+from jlm.train import load_checkpoint
+from jlm.train.trainer import Trainer
 
 
 def main(argv=None):

@@ -14,8 +14,8 @@ import argparse
 
 import numpy as np
 
-from jlm_tpu.ops.quant import quantize_params
-from jlm_tpu.train import load_checkpoint, save_checkpoint
+from jlm.ops.quant import quantize_params
+from jlm.train import load_checkpoint, save_checkpoint
 
 
 def main(argv=None):

@@ -36,9 +36,9 @@ def main(argv=None):
                     help="also quantize the imported weights to int8")
     args = ap.parse_args(argv)
 
-    from jlm_tpu.config import Config, default_dsoftmax_blocks
-    from jlm_tpu.train.checkpoint import save_checkpoint
-    from jlm_tpu.train.import_reference import (
+    from jlm.config import Config, default_dsoftmax_blocks
+    from jlm.train.checkpoint import save_checkpoint
+    from jlm.train.import_reference import (
         import_reference_weights,
         load_export,
     )
@@ -53,7 +53,7 @@ def main(argv=None):
     export = load_export(args.export)
     params, mapping = import_reference_weights(export, cfg)
     if args.int8:
-        from jlm_tpu.ops.quant import quantize_params
+        from jlm.ops.quant import quantize_params
 
         params = quantize_params(params)
         cfg = cfg.replace(quantize=True)

@@ -11,9 +11,11 @@ bootstrap the reference lacks):
 
 After ``jax.distributed.initialize`` the global device set is visible on
 every process; the (data, vocab) mesh spans hosts, the training step is the
-same SPMD program as single-host (:class:`jlm_tpu.train.Trainer` with a
-mesh), and XLA routes the vocab-axis collectives over ICI and the data axis
-over DCN.  Fails fast if the mesh does not match the global device count
+same SPMD program as single-host (:class:`jlm.train.Trainer` with a
+mesh), and XLA hands the collectives to NCCL: keep the vocab axis within
+a host, where the cards are joined all to all by NVLink, and let the data
+axis (no per-step traffic in decode; one gradient all-reduce per training
+step) span hosts.  One process drives all the cards of its host.  Fails fast if the mesh does not match the global device count
 (SURVEY.md §7 failure-detection minimum); crashed runs resume with
 ``--resume`` (checkpoints carry params + optimizer moments + epoch).
 """
@@ -40,7 +42,7 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
 
-    from jlm_tpu.parallel.mesh import multihost_init
+    from jlm.parallel.mesh import multihost_init
 
     multihost_init(args.coordinator, args.num_processes, args.process_id)
     n_global = len(jax.devices())
@@ -50,10 +52,10 @@ def main(argv=None):
         f"global set has {n_global} — aborting on all hosts"
     )
 
-    from jlm_tpu.config import Config, pad_vocab_size
-    from jlm_tpu.data.io import load_dataset
-    from jlm_tpu.parallel.mesh import make_mesh
-    from jlm_tpu.train import train_lm
+    from jlm.config import Config, pad_vocab_size
+    from jlm.data.io import load_dataset
+    from jlm.parallel.mesh import make_mesh
+    from jlm.train import train_lm
 
     vocab, train, dev, _ = load_dataset(args.data)
     config = Config(

@@ -11,8 +11,8 @@ one), builds the frequency vocab, encodes, splits, and writes the data dir.
 import argparse
 import sys
 
-from jlm_tpu.data import build_vocab, encode_corpus, generate_corpus, split_corpus
-from jlm_tpu.data.io import save_dataset
+from jlm.data import build_vocab, encode_corpus, generate_corpus, split_corpus
+from jlm.data.io import save_dataset
 
 
 def main(argv=None):
@@ -32,7 +32,7 @@ def main(argv=None):
 
     if args.stream:
         assert args.corpus, "--stream requires --corpus (a file to stream)"
-        from jlm_tpu.data.streaming import save_dataset_streamed
+        from jlm.data.streaming import save_dataset_streamed
 
         vocab, n = save_dataset_streamed(
             args.out, args.corpus, args.vocab_size,

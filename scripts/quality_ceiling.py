@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Report the synthetic task's exact Bayes-optimal top-1 ceiling.
 
-See :mod:`jlm_tpu.eval.ceiling` for the math.  VERDICT r1 (missing #4)
+See :mod:`jlm.eval.ceiling` for the math.  VERDICT r1 (missing #4)
 asked whether the trained flagship's ~0.47 top-1 is undertraining or the
 corpus's intrinsic ceiling: word choices are context-free given the slot
 by construction, so no LM can beat the MAP decoder of the true posterior.
@@ -11,8 +11,8 @@ Usage: python scripts/quality_ceiling.py [--n 200] [--seed 777]
 
 import argparse
 
-from jlm_tpu.data.synthetic import generate_test_set
-from jlm_tpu.eval.ceiling import bayes_ceiling
+from jlm.data.synthetic import generate_test_set
+from jlm.eval.ceiling import bayes_ceiling
 
 
 def main(argv=None):

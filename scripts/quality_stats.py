@@ -50,7 +50,6 @@ def main():
                          "(robust to the seed-dependent plateau-escape "
                          "epoch), then decay per epoch")
     ap.add_argument("--bf16", action="store_true")
-    ap.add_argument("--fused-ce", action="store_true")
     ap.add_argument("--out", default="QUALITY.json")
     ap.add_argument("--tag", default="config5_stats",
                     help="report key in QUALITY.json (recipe A/Bs)")
@@ -63,25 +62,23 @@ def main():
 
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from jlm.backend import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
 
-    from jlm_tpu.config import Config, default_dsoftmax_blocks
-    from jlm_tpu.data.corpus import build_vocab, encode_corpus, split_corpus
-    from jlm_tpu.data.lexicon import Lexicon
-    from jlm_tpu.data.synthetic_ctx import (
+    from jlm.config import Config, default_dsoftmax_blocks
+    from jlm.data.corpus import build_vocab, encode_corpus, split_corpus
+    from jlm.data.lexicon import Lexicon
+    from jlm.data.synthetic_ctx import (
         generate_corpus_ctx,
         generate_test_set_ctx,
     )
-    from jlm_tpu.decoder.engine import BeamDecoder
-    from jlm_tpu.eval.ceiling import bayes_ceiling_ctx
-    from jlm_tpu.eval.conversion import evaluate_conversion
-    from jlm_tpu.train.trainer import train_lm
+    from jlm.decoder.engine import BeamDecoder
+    from jlm.eval.ceiling import bayes_ceiling_ctx
+    from jlm.eval.conversion import evaluate_conversion
+    from jlm.train.trainer import train_lm
 
     corpus = generate_corpus_ctx(args.sentences, seed=1234)
     tests = generate_test_set_ctx(args.tests, seed=777)
@@ -92,7 +89,7 @@ def main():
     log(f"corpus {args.sentences} sentences, real vocab {len(vocab)}, "
         f"tests {len(tests)}")
     if args.save_data:
-        from jlm_tpu.data.io import save_dataset
+        from jlm.data.io import save_dataset
 
         save_dataset(args.save_data, vocab, train_ids, dev_ids, test_ids)
         log(f"dataset saved to {args.save_data}")
@@ -110,8 +107,8 @@ def main():
         ceil = bayes_ceiling_ctx(tests)
         stats["bayes_ceiling"] = {k: round(v, 4) for k, v in ceil.items()}
         log(f"ceiling: {ceil}")
-        from jlm_tpu.oracle import OracleDecoder
-        from jlm_tpu.oracle.ngram import NgramLM, ngram_config
+        from jlm.oracle import OracleDecoder
+        from jlm.oracle.ngram import NgramLM, ngram_config
 
         base_cfg = Config(vocab_size=V, beam_width=10)
         t0 = time.time()
@@ -133,11 +130,10 @@ def main():
         lr_decay_start_epoch=args.lr_decay_start,
         lr_decay_gate_ppl=args.lr_decay_gate,
         compute_dtype="bfloat16" if args.bf16 else "float32",
-        fused_ce=args.fused_ce,
     )
     stats["recipe"] = {
         "batch_size": args.batch_size, "lr": args.lr, "bf16": args.bf16,
-        "fused_ce": args.fused_ce, "lr_decay_start": args.lr_decay_start,
+        "lr_decay_start": args.lr_decay_start,
         "lr_decay_gate_ppl": args.lr_decay_gate,
     }
 

@@ -13,9 +13,9 @@ however many local devices the mesh needs; combine with
 
 import argparse
 
-from jlm_tpu.config import Config, default_dsoftmax_blocks, pad_vocab_size
-from jlm_tpu.data.io import load_dataset
-from jlm_tpu.train import train_lm
+from jlm.config import Config, default_dsoftmax_blocks, pad_vocab_size
+from jlm.data.io import load_dataset
+from jlm.train import train_lm
 
 
 def main(argv=None):
@@ -48,11 +48,6 @@ def main(argv=None):
                     help="bf16 forward/backward with fp32 master params")
     ap.add_argument("--grad-accum", type=int, default=1,
                     help="microbatches accumulated per optimizer update")
-    ap.add_argument("--fused-ce", action="store_true",
-                    help="fused softmax-CE loss kernel: logits never hit "
-                         "HBM; +17%% tokens/s and -3.2 GB at the 100k head")
-    ap.add_argument("--pallas-scan", action="store_true",
-                    help="fused Pallas time-block LSTM scan in training")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize LSTM activations in backprop "
                          "(fit longer BPTT windows / larger batches)")
@@ -96,8 +91,6 @@ def main(argv=None):
         seq_microbatches=args.seq_microbatches,
         compute_dtype="bfloat16" if args.bf16 else "float32",
         grad_accum_steps=args.grad_accum,
-        use_pallas_scan=args.pallas_scan,
-        fused_ce=args.fused_ce,
         remat=args.remat,
     )
     mesh = None
@@ -108,11 +101,11 @@ def main(argv=None):
         assert cfg.num_steps % cfg.mesh_seq == 0, (
             "--num-steps must divide by --mesh-seq (time blocks)"
         )
-        from jlm_tpu.parallel.mesh import make_seq_mesh
+        from jlm.parallel.mesh import make_seq_mesh
 
         mesh = make_seq_mesh(cfg)
     elif cfg.mesh_data * cfg.mesh_vocab > 1:
-        from jlm_tpu.parallel.mesh import make_mesh
+        from jlm.parallel.mesh import make_mesh
 
         mesh = make_mesh(cfg)
     train_lm(cfg, train, dev, exp_dir=args.exp, resume=args.resume, mesh=mesh)

@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from jlm_tpu.config import EOS_ID, UNK_ID
-from jlm_tpu.data import bptt_batches, parse_line
-from jlm_tpu.data.corpus import parse_token
-from jlm_tpu.data.reader import num_bptt_batches
+from jlm.config import EOS_ID, UNK_ID
+from jlm.data import bptt_batches, parse_line
+from jlm.data.corpus import parse_token
+from jlm.data.reader import num_bptt_batches
 
 
 def test_parse_token_triple():

@@ -10,11 +10,11 @@ int8 tolerance when quantized.
 import numpy as np
 import pytest
 
-from jlm_tpu.config import Config, DSoftmaxConfig
-from jlm_tpu.decoder.engine import BeamDecoder
-from jlm_tpu.models import init_params
-from jlm_tpu.oracle import OracleDecoder, OracleLM
-from jlm_tpu.ops.quant import quantize_params
+from jlm.config import Config, DSoftmaxConfig
+from jlm.decoder.engine import BeamDecoder
+from jlm.models import init_params
+from jlm.oracle import OracleDecoder, OracleLM
+from jlm.ops.quant import quantize_params
 
 
 @pytest.fixture(scope="module")
@@ -145,9 +145,9 @@ def test_dsoftmax_engine_parity(lexicon, vocab):
 
 def test_pallas_forward_top1_parity(tiny_params, tiny_config, lexicon, vocab, oracle):
     """Engine with the Pallas projection head (interpret on CPU) == oracle."""
-    from jlm_tpu.decoder.engine import make_pallas_forward
+    from jlm.decoder.engine import make_pallas_forward
 
-    fwd = make_pallas_forward(tiny_config, tile_v=128)
+    fwd = make_pallas_forward(tiny_config, interpret=True, block_v=64)
     eng = BeamDecoder(tiny_params, lexicon, vocab, tiny_config, forward_fn=fwd)
     for kana in ["きょうはいい", "あめがふる"]:
         r_e, r_o = eng.decode(kana)[0], oracle.decode(kana)[0]
@@ -156,13 +156,14 @@ def test_pallas_forward_top1_parity(tiny_params, tiny_config, lexicon, vocab, or
 
 
 def test_pallas_forward_int8_parity(tiny_params, tiny_config, lexicon, vocab):
-    from jlm_tpu.decoder.engine import make_pallas_forward
+    from jlm.decoder.engine import make_pallas_forward
 
     qp = quantize_params(tiny_params)
     # int8_mxu=False: this test pins the EXACT dequant path (the parity
-    # reference); the int8-MXU default adds activation-quant tolerance and
+    # reference); the int8 x int8 default adds activation-quant tolerance and
     # is covered by test_pallas_forward_int8_mxu_top1 below.
-    fwd = make_pallas_forward(tiny_config, tile_v=128, int8_mxu=False)
+    fwd = make_pallas_forward(tiny_config, interpret=True, block_v=64,
+                              int8_mxu=False)
     eng = BeamDecoder(qp, lexicon, vocab, tiny_config, forward_fn=fwd)
     orc = OracleDecoder(OracleLM(qp, tiny_config), lexicon, vocab, tiny_config)
     r_e, r_o = eng.decode("かみとかわ")[0], orc.decode("かみとかわ")[0]
@@ -175,10 +176,10 @@ def test_pallas_forward_bf16_speed_mode_top1(tiny_params, tiny_config, lexicon, 
     still match the oracle at tiny dims; scores within bf16 tolerance."""
     import jax.numpy as jnp
 
-    from jlm_tpu.decoder.engine import make_pallas_forward
+    from jlm.decoder.engine import make_pallas_forward
 
     fwd = make_pallas_forward(tiny_config, compute_dtype=jnp.bfloat16,
-                              tile_v=128)
+                              interpret=True, block_v=64)
     eng = BeamDecoder(tiny_params, lexicon, vocab, tiny_config, forward_fn=fwd)
     for kana in ["きょうはいい", "あめがふる"]:
         r_e, r_o = eng.decode(kana)[0], oracle.decode(kana)[0]
@@ -187,15 +188,15 @@ def test_pallas_forward_bf16_speed_mode_top1(tiny_params, tiny_config, lexicon, 
 
 
 def test_pallas_forward_int8_mxu_top1(tiny_params, tiny_config, lexicon, vocab):
-    """Native int8-MXU head (int8 activations too): top-1 stable vs the
+    """int8 x int8 head (int8 activations too): top-1 stable vs the
     exact-dequant int8 oracle at tiny dims."""
     import jax.numpy as jnp
 
-    from jlm_tpu.decoder.engine import make_pallas_forward
+    from jlm.decoder.engine import make_pallas_forward
 
     qp = quantize_params(tiny_params)
     fwd = make_pallas_forward(tiny_config, compute_dtype=jnp.bfloat16,
-                              tile_v=128, int8_mxu=True)
+                              interpret=True, block_v=64, int8_mxu=True)
     eng = BeamDecoder(qp, lexicon, vocab, tiny_config, forward_fn=fwd)
     orc = OracleDecoder(OracleLM(qp, tiny_config), lexicon, vocab, tiny_config)
     r_e, r_o = eng.decode("かみとかわ")[0], orc.decode("かみとかわ")[0]
@@ -220,9 +221,9 @@ def test_two_layer_engine_parity(lexicon, vocab):
 
 def test_native_builder_bit_identical(tiny_config, lexicon, vocab):
     """C++ lattice builder output == python builder output, bit for bit."""
-    from jlm_tpu import native
-    from jlm_tpu.decoder.engine import pack_lattice_batch
-    from jlm_tpu.decoder.lattice import build_lattice
+    from jlm import native
+    from jlm.decoder.engine import pack_lattice_batch
+    from jlm.decoder.lattice import build_lattice
 
     if not native.available():
         pytest.skip("no C++ toolchain")
@@ -237,7 +238,7 @@ def test_native_builder_bit_identical(tiny_config, lexicon, vocab):
 
 def test_native_decode_matches_python_builder(tiny_params, tiny_config,
                                               lexicon, vocab, oracle):
-    from jlm_tpu import native
+    from jlm import native
 
     if not native.available():
         pytest.skip("no C++ toolchain")
@@ -255,8 +256,8 @@ def test_native_decode_matches_python_builder(tiny_params, tiny_config,
 def test_gather_modes_identical(tiny_params, tiny_config, lexicon, vocab):
     """gather_mode 'take' and 'onehot' (the default) must produce
     bit-identical paths and scores — selection by 0/1 matmul is exact
-    (einsums pinned to Precision.HIGHEST; the TPU default fp32 matmul
-    truncates operands to bf16, caught on-chip in round 5)."""
+    (einsums pinned to Precision.HIGHEST; a default-precision fp32 matmul
+    may round its operands on an accelerator)."""
     kanas = ["きょうはいいてんき", "あめがふる", "かみとかわ", "はしをみる"]
     res = {}
     for mode in ("take", "onehot"):

@@ -1,7 +1,7 @@
 """Eval harness tests."""
 
-from jlm_tpu.eval.conversion import _char_correct, evaluate_conversion
-from jlm_tpu.oracle import OracleDecoder, OracleLM
+from jlm.eval.conversion import _char_correct, evaluate_conversion
+from jlm.oracle import OracleDecoder, OracleLM
 
 
 def test_char_correct_lcs():
@@ -26,7 +26,7 @@ def test_evaluate_conversion(tiny_params, tiny_config, lexicon, vocab,
 
 def test_evaluate_conversion_batched(tiny_params, tiny_config, lexicon, vocab,
                                      test_sentences):
-    from jlm_tpu.decoder.engine import BeamDecoder
+    from jlm.decoder.engine import BeamDecoder
 
     dec = BeamDecoder(tiny_params, lexicon, vocab, tiny_config)
     rep_b = evaluate_conversion(dec, test_sentences[:4], batched=True)
@@ -38,9 +38,9 @@ def test_evaluate_conversion_batched(tiny_params, tiny_config, lexicon, vocab,
 def test_nbest_oracle_accuracy(tiny_params, tiny_config, lexicon, vocab):
     """n-best oracle accuracy >= top-1 accuracy, and counts gold anywhere
     in the candidate list."""
-    from jlm_tpu.data import generate_test_set
-    from jlm_tpu.decoder.engine import BeamDecoder
-    from jlm_tpu.eval import evaluate_conversion
+    from jlm.data import generate_test_set
+    from jlm.decoder.engine import BeamDecoder
+    from jlm.eval import evaluate_conversion
 
     cfg = tiny_config.replace(n_best_max=4)
     eng = BeamDecoder(tiny_params, lexicon, vocab, cfg)

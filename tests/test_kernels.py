@@ -1,7 +1,13 @@
-"""Pallas kernel tests (interpret mode on CPU; SURVEY.md §9.1 layer 4).
+"""Head-kernel tests (Pallas interpret mode on the CPU; SURVEY.md §9.1 layer 4).
 
-Every kernel ships with a jnp reference and tolerance tests at the real
-shapes from §4.2.
+The normaliser kernel (:func:`jlm.ops.project.project_lse`) ships with a
+plain fp32 reference; candidate log-probs here are the kernel's lse
+subtracted from exact candidate logits, checked against
+:func:`project_candidates_ref`.  Tolerances: 1e-4 absolute for fp32
+operands (the kernel and the reference differ only in summation order);
+3e-2 for bf16 operands (8-bit mantissa on K=64..512 dot products); 0.05
+for the int8 x int8 product (per-row activation quantization, the bound
+pinned by ``test_int8_mxu_score_error_bound``).
 """
 
 import jax
@@ -9,8 +15,30 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jlm_tpu.ops.project import project_candidates, project_candidates_ref
-from jlm_tpu.ops.quant import quantize_weight
+from jlm.config import Config, DSoftmaxConfig
+from jlm.ops.project import (
+    launch_params,
+    merge_ms,
+    project_candidates_ref,
+    project_lse,
+    project_lse_plain,
+    project_ms,
+)
+from jlm.ops.quant import quantize_weight
+
+
+def kernel_candidates(h, w, scale, b, cand, compute_dtype=jnp.float32,
+                      **launch):
+    """Candidate log-probs with the kernel's lse: ``logit[cand] - lse``."""
+    cfg = Config(vocab_size=w.shape[1], hidden_size=h.shape[1])
+    W = w if scale is None else {"q": w, "scale": scale}
+    lse = project_lse(h, {"W": W, "b": b}, cfg, compute_dtype=compute_dtype,
+                      interpret=True, **launch)
+    wf = w.astype(jnp.float32)
+    if scale is not None:
+        wf = wf * scale[None, :]
+    raw = jnp.dot(h, wf[:, cand], precision=jax.lax.Precision.HIGHEST)
+    return raw + b[cand][None, :] - lse
 
 
 @pytest.mark.parametrize("B,H,V,C", [(16, 512, 4096, 65), (8, 256, 2048, 17)])
@@ -20,7 +48,7 @@ def test_project_candidates_fp32(B, H, V, C):
     w = jnp.asarray(rng.normal(size=(H, V)).astype(np.float32) * 0.05)
     b = jnp.asarray(rng.normal(size=(V,)).astype(np.float32) * 0.01)
     cand = jnp.asarray(rng.integers(0, V, C).astype(np.int32))
-    out = project_candidates(h, w, None, b, cand, tile_v=1024, interpret=True)
+    out = kernel_candidates(h, w, None, b, cand, block_v=1024)
     ref = project_candidates_ref(h, w, None, b, cand)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
 
@@ -33,15 +61,8 @@ def test_project_candidates_int8():
     q = quantize_weight(w_f, axis=0)
     b = jnp.asarray(rng.normal(size=(V,)).astype(np.float32) * 0.01)
     cand = jnp.asarray(rng.integers(0, V, C).astype(np.int32))
-    out = project_candidates(
-        h,
-        jnp.asarray(q["q"]),
-        jnp.asarray(q["scale"]),
-        b,
-        cand,
-        tile_v=1024,
-        interpret=True,
-    )
+    out = kernel_candidates(h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]),
+                            b, cand, block_v=1024)
     # reference: dequantized fp32 math — the oracle's int8 parity rule
     ref = project_candidates_ref(
         h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]), b, cand
@@ -50,11 +71,10 @@ def test_project_candidates_int8():
 
 
 def test_project_candidates_int8_mxu_native():
-    """Native int8 MXU path: int8 activations x int8 weights -> int32,
-    rescaled fp32.  Activation quantization adds ~1/255 relative error per
-    element; with H=512 the accumulated logit error stays well under 0.05
-    for unit-scale activations (tolerance-tested, not exact — the exact
-    path is the dequant-to-fp32 default)."""
+    """int8 x int8 -> int32 product, rescaled in fp32.  Activation
+    quantization adds ~1/255 relative error per element; with H=512 the
+    lse error stays well under 0.05 for unit-scale activations
+    (tolerance-tested, not exact — the exact path is the dequant mode)."""
     rng = np.random.default_rng(3)
     B, H, V, C = 16, 512, 4096, 65
     h = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32))
@@ -62,10 +82,8 @@ def test_project_candidates_int8_mxu_native():
     q = quantize_weight(w_f, axis=0)
     b = jnp.asarray(rng.normal(size=(V,)).astype(np.float32) * 0.01)
     cand = jnp.asarray(rng.integers(0, V, C).astype(np.int32))
-    out = project_candidates(
-        h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]), b, cand,
-        tile_v=1024, interpret=True, int8_mxu=True,
-    )
+    out = kernel_candidates(h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]),
+                            b, cand, block_v=1024, int8_mxu=True)
     ref = project_candidates_ref(
         h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]), b, cand
     )
@@ -78,10 +96,10 @@ def test_project_candidates_int8_mxu_native():
 
 def test_int8_mxu_score_error_bound():
     """Pins the activation-quantization score-error bound of the DEFAULT
-    int8-MXU head (config.int8_mxu=True since round 4): at the engine's
-    H=512 with unit-scale activations, candidate log-probs deviate < 0.05
-    from the exact-dequant path.  If this bound drifts, the beam-parity
-    tolerance in bench.py and the oracle referee tolerances are wrong."""
+    int8 x int8 head (config.int8_mxu=True): at the engine's H=512 with
+    unit-scale activations, candidate log-probs deviate < 0.05 from the
+    exact-dequant path.  If this bound drifts, the beam-parity tolerance
+    in bench.py and the oracle referee tolerances are wrong."""
     rng = np.random.default_rng(11)
     B, H, V, C = 32, 512, 4096, 65
     h = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32))
@@ -89,22 +107,14 @@ def test_int8_mxu_score_error_bound():
                         axis=0)
     b = jnp.asarray(rng.normal(size=(V,)).astype(np.float32) * 0.01)
     cand = jnp.asarray(rng.integers(0, V, C).astype(np.int32))
-    mxu = project_candidates(
-        h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]), b, cand,
-        tile_v=1024, interpret=True, int8_mxu=True,
-    )
-    deq = project_candidates(
-        h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]), b, cand,
-        tile_v=1024, interpret=True, int8_mxu=False,
-    )
+    args = (h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]), b, cand)
+    mxu = kernel_candidates(*args, block_v=1024, int8_mxu=True)
+    deq = kernel_candidates(*args, block_v=1024, int8_mxu=False)
     err = float(np.max(np.abs(np.asarray(mxu) - np.asarray(deq))))
-    assert err < 0.05, f"int8-MXU activation-quant error {err} exceeds bound"
+    assert err < 0.05, f"int8 x int8 activation-quant error {err} exceeds bound"
 
 
 def test_project_lse_int8_mxu_matches_dequant():
-    from jlm_tpu.config import Config
-    from jlm_tpu.ops.project import project_lse
-
     rng = np.random.default_rng(4)
     B, H, V = 8, 256, 2048
     cfg = Config(vocab_size=V, embed_size=64, hidden_size=H)
@@ -112,20 +122,21 @@ def test_project_lse_int8_mxu_matches_dequant():
     q = quantize_weight(rng.normal(size=(H, V)).astype(np.float32) * 0.05, axis=0)
     head = {"W": {"q": jnp.asarray(q["q"]), "scale": jnp.asarray(q["scale"])},
             "b": jnp.zeros((V,), jnp.float32)}
-    lse_n = project_lse(h, head, cfg, tile_v=512, interpret=True, int8_mxu=True)
-    lse_d = project_lse(h, head, cfg, tile_v=512, interpret=True)
+    lse_n = project_lse(h, head, cfg, block_v=512, interpret=True,
+                        int8_mxu=True)
+    lse_d = project_lse(h, head, cfg, block_v=512, interpret=True)
     np.testing.assert_allclose(np.asarray(lse_n), np.asarray(lse_d), atol=0.05)
 
 
 def test_project_candidates_unaligned_vocab():
-    """V not a multiple of the tile: padded columns must not leak into lse."""
+    """V not a multiple of the tile: masked columns must not leak into lse."""
     rng = np.random.default_rng(2)
     B, H, V, C = 4, 128, 1000, 7
     h = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32))
     w = jnp.asarray(rng.normal(size=(H, V)).astype(np.float32) * 0.1)
     b = jnp.zeros((V,), jnp.float32)
     cand = jnp.asarray([0, 1, 999, 500, 500, 3, 42], jnp.int32)
-    out = project_candidates(h, w, None, b, cand, tile_v=512, interpret=True)
+    out = kernel_candidates(h, w, None, b, cand, block_v=512)
     ref = project_candidates_ref(h, w, None, b, cand)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
     # duplicate candidate columns agree
@@ -133,26 +144,21 @@ def test_project_candidates_unaligned_vocab():
 
 
 def test_project_candidates_remainder_chunk():
-    """Padded vocab tile NOT a multiple of chunk_v=256 (e.g. V=300 -> tile
-    384): the last 128-wide chunk must slice weights/scales/bias and build
-    the candidate iota at the remainder width (ADVICE r3: full-width iota
-    vs clamped weight slice crashed at trace time)."""
+    """The last vocab tile is short (V=300, tile 256): its weight, scale
+    and bias loads are masked at the remainder width."""
     rng = np.random.default_rng(7)
     B, H, V, C = 4, 128, 300, 9
     h = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32))
     w_f = rng.normal(size=(H, V)).astype(np.float32) * 0.1
     b = jnp.asarray(rng.normal(size=(V,)).astype(np.float32) * 0.01)
     cand = jnp.asarray([0, 1, 299, 150, 257, 255, 256, 42, 299], jnp.int32)
-    out = project_candidates(h, jnp.asarray(w_f), None, b, cand,
-                             tile_v=512, interpret=True)
+    out = kernel_candidates(h, jnp.asarray(w_f), None, b, cand, block_v=256)
     ref = project_candidates_ref(h, jnp.asarray(w_f), None, b, cand)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
     # quantized variant exercises the scale-slice width too
     q = quantize_weight(w_f, axis=0)
-    out_q = project_candidates(
-        h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]), b, cand,
-        tile_v=512, interpret=True,
-    )
+    out_q = kernel_candidates(h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]),
+                              b, cand, block_v=256)
     ref_q = project_candidates_ref(
         h, jnp.asarray(q["q"]), jnp.asarray(q["scale"]), b, cand
     )
@@ -167,369 +173,226 @@ def test_project_candidates_normalization():
     w = jnp.asarray(rng.normal(size=(H, V)).astype(np.float32) * 0.1)
     b = jnp.zeros((V,), jnp.float32)
     cand = jnp.arange(V, dtype=jnp.int32)
-    out = project_candidates(h, w, None, b, cand, tile_v=128, interpret=True)
-    np.testing.assert_allclose(np.exp(np.asarray(out)).sum(axis=1), 1.0, rtol=1e-4)
+    out = kernel_candidates(h, w, None, b, cand, block_v=64)
+    np.testing.assert_allclose(np.exp(np.asarray(out)).sum(axis=1), 1.0,
+                               rtol=1e-4)
 
 
-# ---------------------------------------------------------------------------
-# Fused LSTM time-block scan kernel
-# ---------------------------------------------------------------------------
-
-from jlm_tpu.ops.lstm_scan import lstm_scan, lstm_scan_ref
-
-
-@pytest.mark.parametrize("B,T,E,H,TB", [(8, 32, 256, 512, 16), (16, 8, 32, 64, 8)])
-def test_lstm_scan_matches_ref(B, T, E, H, TB):
-    rng = np.random.default_rng(4)
-    xs = jnp.asarray(rng.normal(size=(B, T, E)).astype(np.float32) * 0.1)
-    W = jnp.asarray(rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.05)
-    b = jnp.asarray(rng.normal(size=(4 * H,)).astype(np.float32) * 0.01)
-    c0 = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32) * 0.1)
-    h0 = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32) * 0.1)
-    hs, cf, hf = lstm_scan(xs, W, b, c0, h0, 1.0, TB, jnp.float32, True)
-    hs_r, cf_r, hf_r = lstm_scan_ref(xs, W, b, c0, h0)
-    np.testing.assert_allclose(np.asarray(hs), np.asarray(hs_r), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(cf), np.asarray(cf_r), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(hf), np.asarray(hf_r), atol=1e-5)
-
-
-def test_lstm_scan_state_carry_across_windows():
-    """Two chained kernel windows == one double-length reference scan."""
-    rng = np.random.default_rng(5)
-    B, T, E, H = 4, 16, 32, 64
-    xs = jnp.asarray(rng.normal(size=(B, 2 * T, E)).astype(np.float32) * 0.1)
-    W = jnp.asarray(rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.05)
-    b = jnp.zeros((4 * H,), jnp.float32)
-    z = jnp.zeros((B, H), jnp.float32)
-    hs1, c1, h1 = lstm_scan(xs[:, :T], W, b, z, z, 1.0, 8, jnp.float32, True)
-    hs2, c2, h2 = lstm_scan(xs[:, T:], W, b, c1, h1, 1.0, 8, jnp.float32, True)
-    hs_r, cf_r, hf_r = lstm_scan_ref(xs, W, b, z, z)
-    np.testing.assert_allclose(np.asarray(hs2), np.asarray(hs_r[:, T:]), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(c2), np.asarray(cf_r), atol=1e-5)
-
-
-def test_lstm_scan_grad_flows():
-    rng = np.random.default_rng(6)
-    B, T, E, H = 2, 8, 16, 32
-    xs = jnp.asarray(rng.normal(size=(B, T, E)).astype(np.float32) * 0.1)
-    W = jnp.asarray(rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.05)
-    b = jnp.zeros((4 * H,), jnp.float32)
-    z = jnp.zeros((B, H), jnp.float32)
-
-    def loss_k(W):
-        hs, _, _ = lstm_scan(xs, W, b, z, z, 1.0, 8, jnp.float32, True)
-        return jnp.sum(hs ** 2)
-
-    def loss_r(W):
-        hs, _, _ = lstm_scan_ref(xs, W, b, z, z)
-        return jnp.sum(hs ** 2)
-
-    gk = jax.grad(loss_k)(W)
-    gr = jax.grad(loss_r)(W)
-    np.testing.assert_allclose(np.asarray(gk), np.asarray(gr), atol=1e-4)
-
-
-@pytest.mark.parametrize("B,T,E,H,TB", [(4, 16, 32, 64, 8), (8, 12, 16, 128, 4)])
-def test_lstm_scan_pallas_backward_all_grads(B, T, E, H, TB):
-    """The Pallas backward kernel matches the XLA-scan VJP on EVERY input
-    cotangent (xs, W, b, c0, h0) with grads flowing from all three outputs."""
-    rng = np.random.default_rng(11)
-    xs = jnp.asarray(rng.normal(size=(B, T, E)).astype(np.float32) * 0.1)
-    W = jnp.asarray(rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.05)
-    b = jnp.asarray(rng.normal(size=(4 * H,)).astype(np.float32) * 0.01)
-    c0 = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32) * 0.1)
-    h0 = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32) * 0.1)
-    wh = jnp.asarray(rng.normal(size=(B, T, H)).astype(np.float32))
-    wc = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32))
-
-    def loss(fn):
-        def f(xs, W, b, c0, h0):
-            hs, cf, hf = fn(xs, W, b, c0, h0)
-            return jnp.sum(hs * wh) + jnp.sum(cf * wc) + jnp.sum(hf * wc)
-        return f
-
-    gk = jax.grad(
-        loss(lambda *a: lstm_scan(*a, 1.0, TB, jnp.float32, True)),
-        argnums=(0, 1, 2, 3, 4),
-    )(xs, W, b, c0, h0)
-    gr = jax.grad(loss(lstm_scan_ref), argnums=(0, 1, 2, 3, 4))(xs, W, b, c0, h0)
-    for k, r, name in zip(gk, gr, ["xs", "W", "b", "c0", "h0"]):
-        np.testing.assert_allclose(
-            np.asarray(k), np.asarray(r), atol=2e-4, rtol=1e-4,
-            err_msg=f"grad mismatch for {name}",
-        )
-
-
-def test_lstm_scan_vmem_overflow_falls_back_to_ref():
-    """Dims whose weights alone bust the VMEM budget must run the jnp
-    fallback (VERDICT r1 weak #6: previously this failed to compile)."""
-    rng = np.random.default_rng(12)
-    B, T, E, H = 2, 4, 512, 1024  # W is 25 MB fp32 > the 12 MB budget
-    xs = jnp.asarray(rng.normal(size=(B, T, E)).astype(np.float32) * 0.1)
-    W = jnp.asarray(rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.02)
-    b = jnp.zeros((4 * H,), jnp.float32)
-    z = jnp.zeros((B, H), jnp.float32)
-    hs, cf, hf = lstm_scan(xs, W, b, z, z, 1.0, 4, jnp.float32, True)
-    hs_r, cf_r, hf_r = lstm_scan_ref(xs, W, b, z, z)
-    np.testing.assert_allclose(np.asarray(hs), np.asarray(hs_r), atol=1e-5)
-
-    g = jax.grad(lambda W: jnp.sum(lstm_scan(xs, W, b, z, z, 1.0, 4,
-                                             jnp.float32, True)[0] ** 2))(W)
-    gr = jax.grad(lambda W: jnp.sum(lstm_scan_ref(xs, W, b, z, z)[0] ** 2))(W)
-    np.testing.assert_allclose(np.asarray(g), np.asarray(gr), atol=1e-4)
+def _dsoftmax_case(mode, quantized, seed):
+    rng = np.random.default_rng(seed)
+    H = 64
+    dims = (64, 32, 16) if mode == "prefix" else (32, 16, 16)
+    cfg = Config(
+        vocab_size=768, embed_size=32, hidden_size=H, head="dsoftmax",
+        dsoftmax=DSoftmaxConfig(block_sizes=(256, 256, 256), block_dims=dims,
+                                mode=mode),
+    )
+    blocks, dense = [], []
+    offset = 0
+    for s, d in zip(cfg.dsoftmax.block_sizes, dims):
+        w = rng.normal(size=(d, s)).astype(np.float32) * 0.1
+        b = jnp.asarray(rng.normal(size=(s,)).astype(np.float32) * 0.01)
+        if quantized:
+            q = quantize_weight(w, axis=0)
+            W = {"q": jnp.asarray(q["q"]), "scale": jnp.asarray(q["scale"])}
+            w = q["q"].astype(np.float32) * q["scale"][None, :]
+        else:
+            W = jnp.asarray(w)
+        blocks.append({"W": W, "b": b})
+        lo = 0 if mode == "prefix" else offset
+        dense.append(np.pad(w, ((lo, H - lo - d), (0, 0))))
+        offset += d
+    dense = jnp.asarray(np.concatenate(dense, axis=1))
+    bias = jnp.concatenate([b["b"] for b in blocks])
+    h = jnp.asarray(rng.normal(size=(8, H)).astype(np.float32))
+    return cfg, {"blocks": blocks}, h, dense, bias
 
 
 def test_project_candidates_dsoftmax_matches_dense():
-    from jlm_tpu.config import Config, DSoftmaxConfig
-    from jlm_tpu.ops.project import project_candidates_dsoftmax
-
-    rng = np.random.default_rng(7)
-    B, H = 8, 64
-    cfg = Config(
-        vocab_size=768, embed_size=32, hidden_size=H, head="dsoftmax",
-        dsoftmax=DSoftmaxConfig(
-            block_sizes=(256, 256, 256), block_dims=(64, 32, 16), mode="prefix"
-        ),
-    )
-    blocks = [
-        {"W": jnp.asarray(rng.normal(size=(d, s)).astype(np.float32) * 0.1),
-         "b": jnp.asarray(rng.normal(size=(s,)).astype(np.float32) * 0.01)}
-        for s, d in zip(cfg.dsoftmax.block_sizes, cfg.dsoftmax.block_dims)
-    ]
-    h = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32))
+    cfg, head, h, dense, bias = _dsoftmax_case("prefix", False, 7)
     cand = jnp.asarray([0, 255, 256, 511, 512, 767, 100], jnp.int32)
-    out = project_candidates_dsoftmax(h, blocks, cfg, cand, tile_v=256,
-                                      interpret=True)
-    # dense reference: zero-pad each block W up to H rows (prefix slices)
-    dense = jnp.concatenate(
-        [jnp.pad(b["W"], ((0, H - b["W"].shape[0]), (0, 0))) for b in blocks],
-        axis=1,
-    )
-    bias = jnp.concatenate([b["b"] for b in blocks])
+    lse = project_lse(h, head, cfg, compute_dtype=jnp.float32,
+                      interpret=True, block_v=128)
+    out = (jnp.dot(h, dense[:, cand], precision=jax.lax.Precision.HIGHEST)
+           + bias[cand] - lse)
     ref = project_candidates_ref(h, dense, None, bias, cand)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
 
 
 def test_project_candidates_dsoftmax_int8():
-    from jlm_tpu.config import Config, DSoftmaxConfig
-    from jlm_tpu.ops.project import project_candidates_dsoftmax
-
-    rng = np.random.default_rng(8)
-    B, H = 8, 64
-    cfg = Config(
-        vocab_size=512, embed_size=32, hidden_size=H, head="dsoftmax",
-        dsoftmax=DSoftmaxConfig(
-            block_sizes=(256, 256), block_dims=(64, 32), mode="prefix"
-        ),
-    )
-    blocks_f = [
-        {"W": rng.normal(size=(d, s)).astype(np.float32) * 0.1,
-         "b": rng.normal(size=(s,)).astype(np.float32) * 0.01}
-        for s, d in zip(cfg.dsoftmax.block_sizes, cfg.dsoftmax.block_dims)
-    ]
-    blocks_q = [
-        {"W": quantize_weight(b["W"], axis=0), "b": jnp.asarray(b["b"])}
-        for b in blocks_f
-    ]
-    h = jnp.asarray(rng.normal(size=(B, H)).astype(np.float32))
-    cand = jnp.asarray([0, 100, 300, 511], jnp.int32)
-    out = project_candidates_dsoftmax(h, blocks_q, cfg, cand, tile_v=256,
-                                      interpret=True)
-    dense = jnp.concatenate(
-        [jnp.pad(
-            jnp.asarray(b["W"]["q"].astype(np.float32) * b["W"]["scale"][None, :]),
-            ((0, H - b["W"]["q"].shape[0]), (0, 0)))
-         for b in blocks_q],
-        axis=1,
-    )
-    bias = jnp.concatenate([jnp.asarray(b["b"]) for b in blocks_f])
+    cfg, head, h, dense, bias = _dsoftmax_case("prefix", True, 8)
+    cand = jnp.asarray([0, 100, 300, 511, 767], jnp.int32)
+    lse = project_lse(h, head, cfg, compute_dtype=jnp.float32,
+                      interpret=True, block_v=128)
+    out = (jnp.dot(h, dense[:, cand], precision=jax.lax.Precision.HIGHEST)
+           + bias[cand] - lse)
     ref = project_candidates_ref(h, dense, None, bias, cand)
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
-# Fused softmax cross-entropy kernel
+# Padding, D-softmax modes and the vocab split
 # ---------------------------------------------------------------------------
 
-from jlm_tpu.ops.softmax_ce import ce_loss_fused, ce_loss_ref
-
-
-@pytest.mark.parametrize("B,D,V", [(16, 128, 1000), (32, 256, 4096)])
-def test_ce_fused_forward(B, D, V):
-    rng = np.random.default_rng(21)
-    h = jnp.asarray(rng.normal(size=(B, D)).astype(np.float32))
-    W = jnp.asarray(rng.normal(size=(D, V)).astype(np.float32) * 0.05)
+def _full_case(R, H, V, seed=0):
+    rng = np.random.default_rng(seed)
+    cfg = Config(vocab_size=V, hidden_size=H)
+    h = jnp.asarray(rng.normal(size=(R, H)).astype(np.float32))
+    w = jnp.asarray(rng.normal(size=(H, V)).astype(np.float32) * 0.1)
     b = jnp.asarray(rng.normal(size=(V,)).astype(np.float32) * 0.01)
-    y = jnp.asarray(rng.integers(0, V, B).astype(np.int32))
-    out = ce_loss_fused(h, W, b, y, 512, jnp.float32, True)
-    ref = ce_loss_ref(h, W, b, y)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-5,
+    return cfg, {"W": w, "b": b}, h
+
+
+@pytest.mark.parametrize("R", [1, 17, 100])
+def test_project_lse_rows_not_multiple_of_block(R):
+    """Rows beyond R in the last row block are masked, and the wrapper
+    returns exactly R rows."""
+    cfg, head, h = _full_case(R, 64, 512, seed=R)
+    lse = project_lse(h, head, cfg, compute_dtype=jnp.float32,
+                      interpret=True, block_r=16, block_v=128)
+    assert lse.shape == (R, 1)
+    ref = project_lse_plain(h, head, cfg)
+    np.testing.assert_allclose(np.asarray(lse), np.asarray(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("V", [100, 1000, 1023])
+def test_project_lse_vocab_not_multiple_of_tile(V):
+    cfg, head, h = _full_case(12, 64, V, seed=V)
+    lse = project_lse(h, head, cfg, compute_dtype=jnp.float32,
+                      interpret=True, block_v=128)
+    ref = project_lse_plain(h, head, cfg)
+    np.testing.assert_allclose(np.asarray(lse), np.asarray(ref), atol=1e-4)
+
+
+def test_project_lse_width_not_power_of_two():
+    """H=48 pads to a 64-wide tile; the padded columns load as zeros."""
+    cfg, head, h = _full_case(10, 48, 300, seed=5)
+    lse = project_lse(h, head, cfg, compute_dtype=jnp.float32,
+                      interpret=True, block_v=64)
+    ref = project_lse_plain(h, head, cfg)
+    np.testing.assert_allclose(np.asarray(lse), np.asarray(ref), atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["prefix", "disjoint"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_project_lse_dsoftmax_modes(mode, quantized):
+    cfg, head, h, dense, bias = _dsoftmax_case(mode, quantized, 21)
+    lse = project_lse(h, head, cfg, compute_dtype=jnp.float32,
+                      interpret=True, block_v=64)
+    logits = jnp.dot(h, dense, precision=jax.lax.Precision.HIGHEST) + bias
+    ref = jax.nn.logsumexp(logits, axis=1, keepdims=True)
+    np.testing.assert_allclose(np.asarray(lse), np.asarray(ref), atol=1e-4)
+    np.testing.assert_allclose(
+        np.asarray(project_lse_plain(h, head, cfg)), np.asarray(ref),
+        atol=1e-4)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5])
+def test_project_ms_vocab_split_merge(splits):
+    """P-way vocab split: the merged (m, s) of the parts equals one pass
+    over the whole vocabulary, including a short last split."""
+    cfg, head, h = _full_case(20, 64, 1000, seed=splits)
+    m, s = project_ms(h, head, cfg, compute_dtype=jnp.float32,
+                      interpret=True, block_v=64, splits=splits)
+    m1, s1 = project_ms(h, head, cfg, compute_dtype=jnp.float32,
+                        interpret=True, block_v=64, splits=1)
+    np.testing.assert_allclose(np.asarray(m + jnp.log(s)),
+                               np.asarray(m1 + jnp.log(s1)), atol=1e-5)
+    ref = project_lse_plain(h, head, cfg)
+    np.testing.assert_allclose(np.asarray(m + jnp.log(s)), np.asarray(ref),
+                               atol=1e-4)
+
+
+def test_merge_ms_matches_logsumexp():
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.normal(size=(4, 30)).astype(np.float32) * 5)
+    parts = jnp.split(x, 3, axis=1)
+    m = jnp.stack([p.max(axis=1) for p in parts])
+    s = jnp.stack([jnp.exp(p - p.max(axis=1, keepdims=True)).sum(axis=1)
+                   for p in parts])
+    mg, sg = merge_ms(m, s)
+    np.testing.assert_allclose(np.asarray(mg + jnp.log(sg))[0],
+                               np.asarray(jax.nn.logsumexp(x, axis=1)),
                                atol=1e-5)
 
 
-def test_ce_fused_grads_match_ref():
-    rng = np.random.default_rng(22)
-    B, D, V = 24, 128, 1000  # V not a tile multiple: exercises padding
-    h = jnp.asarray(rng.normal(size=(B, D)).astype(np.float32))
-    W = jnp.asarray(rng.normal(size=(D, V)).astype(np.float32) * 0.05)
-    b = jnp.asarray(rng.normal(size=(V,)).astype(np.float32) * 0.01)
-    y = jnp.asarray(rng.integers(0, V, B).astype(np.int32))
-    gw = jnp.asarray(rng.normal(size=(B,)).astype(np.float32))
-
-    def loss_k(h, W, b):
-        return jnp.sum(ce_loss_fused(h, W, b, y, 512, jnp.float32, True) * gw)
-
-    def loss_r(h, W, b):
-        return jnp.sum(ce_loss_ref(h, W, b, y) * gw)
-
-    gk = jax.grad(loss_k, argnums=(0, 1, 2))(h, W, b)
-    gr = jax.grad(loss_r, argnums=(0, 1, 2))(h, W, b)
-    for k, r, name in zip(gk, gr, ["h", "W", "b"]):
-        np.testing.assert_allclose(
-            np.asarray(k), np.asarray(r), atol=1e-4, rtol=1e-4,
-            err_msg=f"CE grad mismatch for {name}",
-        )
+def test_project_lse_bf16_against_fp32_reference():
+    """bf16 operands with an fp32 accumulator: within 3e-2 of the fp32
+    HIGHEST reference at H=512."""
+    cfg, head, h = _full_case(24, 512, 2048, seed=3)
+    lse = project_lse(h, head, cfg, compute_dtype=jnp.bfloat16,
+                      interpret=True, block_v=256)
+    ref = project_lse_plain(h, head, cfg)
+    np.testing.assert_allclose(np.asarray(lse), np.asarray(ref), atol=3e-2)
 
 
-def test_ce_fused_dsoftmax_matches_ref():
-    """D-softmax fused CE (per-block kernels + merged partial lse) ==
-    plain CE over the segmented logits, loss AND grads (VERDICT r3 #7:
-    config-5's 100k D-softmax head previously had no fused-CE path)."""
-    from jlm_tpu.config import Config, DSoftmaxConfig
-    from jlm_tpu.models.heads import full_softmax_loss
-    from jlm_tpu.models.params import init_params
-    from jlm_tpu.ops.softmax_ce import ce_loss_fused_dsoftmax
-
-    for mode in ("prefix", "disjoint"):
-        cfg = Config(
-            vocab_size=768, embed_size=32, hidden_size=64, head="dsoftmax",
-            dsoftmax=DSoftmaxConfig(
-                block_sizes=(128, 256, 384),
-                block_dims=(64, 32, 16) if mode == "prefix" else (32, 16, 16),
-                mode=mode,
-            ),
-            fused_ce=True, seed=3,
-        )
-        params = jax.tree.map(jnp.asarray, init_params(cfg))
-        rng = np.random.default_rng(31)
-        B, T = 4, 6
-        hs = jnp.asarray(rng.normal(size=(B, T, 64)).astype(np.float32) * 0.3)
-        # targets spanning all three blocks incl. boundaries
-        tgt = jnp.asarray(
-            rng.integers(0, 768, (B, T)).astype(np.int32)
-        ).at[0, :4].set(jnp.asarray([0, 127, 128, 767]))
-
-        def fused(p):
-            return full_softmax_loss(p, cfg, hs, tgt, precision="highest")
-
-        cfg_ref = cfg.replace(fused_ce=False)
-
-        def ref(p):
-            return full_softmax_loss(p, cfg_ref, hs, tgt, precision="highest")
-
-        np.testing.assert_allclose(
-            float(fused(params)), float(ref(params)), rtol=1e-5, atol=1e-5,
-            err_msg=mode,
-        )
-        gk = jax.grad(fused)(params)
-        gr = jax.grad(ref)(params)
-        for k, blk in enumerate(gk["head"]["blocks"]):
-            np.testing.assert_allclose(
-                np.asarray(blk["W"]),
-                np.asarray(gr["head"]["blocks"][k]["W"]),
-                atol=1e-4, rtol=1e-4, err_msg=f"{mode} dW block {k}",
-            )
-            np.testing.assert_allclose(
-                np.asarray(blk["b"]),
-                np.asarray(gr["head"]["blocks"][k]["b"]),
-                atol=1e-4, rtol=1e-4, err_msg=f"{mode} db block {k}",
-            )
-        gh_k = jax.grad(lambda x: full_softmax_loss(
-            params, cfg, x, tgt, precision="highest"))(hs)
-        gh_r = jax.grad(lambda x: full_softmax_loss(
-            params, cfg_ref, x, tgt, precision="highest"))(hs)
-        np.testing.assert_allclose(
-            np.asarray(gh_k), np.asarray(gh_r), atol=1e-4, rtol=1e-4,
-            err_msg=f"{mode} dh",
-        )
+def test_launch_params_shapes():
+    """Tiles are powers of two >= 16, splits cover every vocab tile, and
+    small batches split the vocabulary to fill the card."""
+    for R, D, V in [(10, 512, 50_000), (640, 512, 50_000),
+                    (20_480, 512, 50_000), (20_480, 128, 50_000), (3, 16, 40)]:
+        lp = launch_params(R, D, V)
+        for t in (lp.block_r, lp.block_v):
+            assert t >= 16 and t & (t - 1) == 0
+        n_tiles = -(-V // lp.block_v)
+        per = -(-n_tiles // lp.splits)
+        assert per * lp.splits >= n_tiles > per * (lp.splits - 1)
+    assert launch_params(10, 512, 50_000).splits > 100
+    assert launch_params(20_480, 512, 50_000, splits=1).splits == 1
 
 
-@pytest.mark.parametrize("R,E,H,dtype", [
-    (48, 64, 96, jnp.float32),
-    (48, 64, 96, jnp.bfloat16),
-])
-def test_lstm_cell_step(R, E, H, dtype):
-    """Fused decode-cell kernel vs the jnp reference cell."""
-    from jlm_tpu.ops.lstm_cell import lstm_cell_ref, lstm_cell_step
+# ---------------------------------------------------------------------------
+# XLA pieces of the kernel forward
+# ---------------------------------------------------------------------------
+
+def test_xla_cell_bf16_matches_fp32_reference():
+    """The decode cell in bf16 (fp32 accumulate and gates) stays within
+    3e-2 of the fp32 ``lstm_step`` reference; fp32 mode matches it."""
+    from jlm.models.lstm import cell, lstm_step
 
     rng = np.random.default_rng(7)
+    R, E, H = 48, 64, 96
+    cfg = Config(vocab_size=16, embed_size=E, hidden_size=H)
     x = jnp.asarray(rng.normal(size=(R, E)).astype(np.float32) * 0.3)
     h = jnp.asarray(rng.normal(size=(R, H)).astype(np.float32) * 0.3)
     c = jnp.asarray(rng.normal(size=(R, H)).astype(np.float32) * 0.3)
     W = jnp.asarray(rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.1)
     b = jnp.asarray(rng.normal(size=(4 * H,)).astype(np.float32) * 0.01)
-    c2, h2 = lstm_cell_step(x, h, c, W, b, 1.0, compute_dtype=dtype,
-                            interpret=True)
-    c_ref, h_ref = lstm_cell_ref(x, h, c, W, b, 1.0)
-    atol = 1e-5 if dtype == jnp.float32 else 3e-2
-    np.testing.assert_allclose(np.asarray(c2), np.asarray(c_ref), atol=atol)
-    np.testing.assert_allclose(np.asarray(h2, np.float32),
-                               np.asarray(h_ref), atol=atol)
+    params = {"lstm": [{"W": W, "b": b}]}
+    _, (c_ref, h_ref) = lstm_step(params, cfg, x, (c[None], h[None]))
+    for dtype, atol in ((jnp.float32, 1e-5), (jnp.bfloat16, 3e-2)):
+        c2, h2 = cell(x, h, c, W, b, cfg.forget_bias, dtype)
+        assert c2.dtype == dtype and h2.dtype == dtype
+        np.testing.assert_allclose(np.asarray(c2, np.float32),
+                                   np.asarray(c_ref[0]), atol=atol)
+        np.testing.assert_allclose(np.asarray(h2, np.float32),
+                                   np.asarray(h_ref[0]), atol=atol)
 
 
-def test_cell_cand_fused():
-    """Fused cell+candidate frame kernel == cell ref + einsum ref, at both
-    beam-pad row counts (10 = flagship, 8 = tiny-config minimum)."""
-    from jlm_tpu.ops.frame_step import cell_cand_ref, cell_cand_step
-
-    rng = np.random.default_rng(21)
-    for S, B, E, H, C1 in [(12, 10, 64, 128, 17), (4, 8, 32, 64, 9)]:
-        R = S * B
-        x = jnp.asarray(rng.normal(size=(R, E)).astype(np.float32))
-        h = jnp.asarray(rng.normal(size=(R, H)).astype(np.float32) * 0.1)
-        c = jnp.asarray(rng.normal(size=(R, H)).astype(np.float32) * 0.1)
-        W = jnp.asarray(rng.normal(size=(E + H, 4 * H)).astype(np.float32) * 0.05)
-        b = jnp.asarray(rng.normal(size=(4 * H,)).astype(np.float32) * 0.01)
-        cols = jnp.asarray(rng.normal(size=(S, C1, H)).astype(np.float32) * 0.1)
-        cbias = jnp.asarray(rng.normal(size=(S, C1)).astype(np.float32) * 0.01)
-        c_k, h_k, cand_k = cell_cand_step(
-            x, h, c, W, b, cols, cbias, B, 1.0, interpret=True
-        )
-        c_r, h_r, cand_r = cell_cand_ref(x, h, c, W, b, cols, cbias, B, 1.0)
-        np.testing.assert_allclose(np.asarray(c_k), np.asarray(c_r), atol=1e-5)
-        np.testing.assert_allclose(np.asarray(h_k), np.asarray(h_r), atol=1e-5)
-        np.testing.assert_allclose(
-            np.asarray(cand_k), np.asarray(cand_r), atol=1e-4
-        )
-
-
-@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
-def test_cand_dot(dtype):
-    """Per-sentence candidate-scoring kernel vs the einsum reference."""
-    from jlm_tpu.ops.cand_dot import cand_dot, cand_dot_ref
+def test_candidate_dot_bf16_matches_fp32_reference():
+    """Per-sentence candidate einsum: fp32 exact to 1e-4, bf16 operands
+    within 0.15 at H=128 with 0.3-scale operands."""
+    from jlm.decoder.engine import candidate_dot
 
     rng = np.random.default_rng(11)
-    S, B, C1, H = 12, 10, 65, 128  # deliberately non-multiple of gs
-    h3 = jnp.asarray(rng.normal(size=(S, B, H)).astype(np.float32) * 0.3,
-                     dtype)
-    cols = jnp.asarray(rng.normal(size=(S, C1, H)).astype(np.float32) * 0.3,
-                       dtype)
+    S, B, C1, H = 12, 10, 65, 128
+    h3 = jnp.asarray(rng.normal(size=(S, B, H)).astype(np.float32) * 0.3)
+    cols = jnp.asarray(rng.normal(size=(S, C1, H)).astype(np.float32) * 0.3)
     bias = jnp.asarray(rng.normal(size=(S, C1)).astype(np.float32) * 0.1)
-    out = cand_dot(h3, cols, bias, gs=8, interpret=True)
-    ref = cand_dot_ref(h3, cols, bias)
-    atol = 1e-4 if dtype == jnp.float32 else 0.15
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=atol)
+    ref = np.einsum("sbh,sch->sbc", np.asarray(h3, np.float64),
+                    np.asarray(cols, np.float64)) + np.asarray(bias)[:, None]
+    out32 = candidate_dot(h3, cols, bias, jnp.float32)
+    out16 = candidate_dot(h3, cols, bias, jnp.bfloat16)
+    assert out16.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(out32), ref, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(out16), ref, atol=0.15)
 
 
 def test_topk_stable_exact_vs_lax():
     """topk_stable('argmax') == lax.top_k bit-for-bit, incl. tie order
     (ascending index within a tie group) and NEG-masked slots — the
-    parity-frozen beam prune rule (VERDICT r4 weak #1 lever)."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from jlm_tpu.decoder.engine import topk_stable
+    parity-frozen beam prune rule."""
+    from jlm.decoder.engine import topk_stable
 
     rng = np.random.default_rng(0)
     # heavy ties: quantized values + NEG padding like real ext scores

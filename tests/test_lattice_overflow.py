@@ -10,11 +10,11 @@ raise/warn per ``config.node_overflow``, and a raised budget is lossless.
 import numpy as np
 import pytest
 
-from jlm_tpu.config import Config
-from jlm_tpu.data.corpus import build_vocab
-from jlm_tpu.data.lexicon import Lexicon
-from jlm_tpu.decoder.engine import pack_lattice_batch
-from jlm_tpu.decoder.lattice import build_lattice
+from jlm.config import Config
+from jlm.data.corpus import build_vocab
+from jlm.data.lexicon import Lexicon
+from jlm.decoder.engine import pack_lattice_batch
+from jlm.decoder.lattice import build_lattice
 
 N_HOMOPHONES = 24  # > default max_nodes_per_frame=16
 
@@ -65,7 +65,7 @@ def test_raised_budget_is_lossless(dense_vocab, dense_lexicon):
 
 
 def test_native_builder_matches_overflow_policy(dense_vocab, dense_lexicon):
-    from jlm_tpu import native
+    from jlm import native
 
     if not native.available():
         pytest.skip("no native toolchain")

@@ -15,11 +15,11 @@ words) carried across on device.  These tests pin:
 import numpy as np
 import pytest
 
-from jlm_tpu.config import Config, EOS_ID
-from jlm_tpu.data import Lexicon, build_vocab, generate_corpus, generate_test_set
-from jlm_tpu.decoder.engine import BeamDecoder
-from jlm_tpu.models.params import init_params
-from jlm_tpu.oracle import OracleLM
+from jlm.config import Config, EOS_ID
+from jlm.data import Lexicon, build_vocab, generate_corpus, generate_test_set
+from jlm.decoder.engine import BeamDecoder
+from jlm.models.params import init_params
+from jlm.oracle import OracleLM
 
 
 @pytest.fixture(scope="module")
@@ -120,7 +120,7 @@ def test_decode_long_adversarial_boundary_exact(setup):
     UNCAPPED oracle exactly — path identity AND score, zero boundary
     cost."""
     cfg, vocab, lex, params, eng = setup
-    from jlm_tpu.oracle import OracleDecoder, OracleLM
+    from jlm.oracle import OracleDecoder, OracleLM
 
     # the oracle plays the reference's UNCAPPED lattice (SURVEY.md §4.5):
     # same model, no frame bound
@@ -156,7 +156,7 @@ def test_decode_long_matches_uncapped_oracle_stream(setup):
     """>max_kana_len inputs match an unchunked oracle decode exactly over a
     stream of ordinary (non-adversarial) long inputs, 3+ chunks deep."""
     cfg, vocab, lex, params, eng = setup
-    from jlm_tpu.oracle import OracleDecoder, OracleLM
+    from jlm.oracle import OracleDecoder, OracleLM
 
     orc = OracleDecoder(
         OracleLM(params, cfg), lex, vocab, cfg.replace(max_kana_len=64)
@@ -175,12 +175,12 @@ def test_decode_long_multiroot_pallas_head(setup):
     """Multi-root seeding through the PALLAS speed head's score_hidden
     hook (cand_dot + project_lse on the exported boundary h_top): top-1
     path must match the uncapped oracle at tiny dims (fp32 compute — the
-    hook is the same code the bf16/int8 engine runs on TPU)."""
+    hook is the same code the bf16/int8 engine runs on the GPU)."""
     cfg, vocab, lex, params, _ = setup
-    from jlm_tpu.decoder.engine import make_pallas_forward
-    from jlm_tpu.oracle import OracleDecoder, OracleLM
+    from jlm.decoder.engine import make_pallas_forward
+    from jlm.oracle import OracleDecoder, OracleLM
 
-    fwd = make_pallas_forward(cfg, tile_v=128, interpret=True)
+    fwd = make_pallas_forward(cfg, interpret=True, block_v=64)
     eng_p = BeamDecoder(params, lex, vocab, cfg, forward_fn=fwd)
     orc = OracleDecoder(
         OracleLM(params, cfg), lex, vocab, cfg.replace(max_kana_len=64)
@@ -197,7 +197,7 @@ def test_decode_long_chain_fallback(setup):
     """Forwards without a score_hidden hook fall back to single-root
     chaining: still decodes, scores stay exact for the searched path."""
     cfg, vocab, lex, params, eng = setup
-    from jlm_tpu.decoder.engine import full_softmax_forward
+    from jlm.decoder.engine import full_softmax_forward
 
     # a bare forward WITHOUT the hook
     fwd = lambda p, w, s, cw: full_softmax_forward(p, cfg, w, s, cw)

@@ -5,22 +5,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jlm_tpu.config import Config, DSoftmaxConfig
-from jlm_tpu.models import init_params
-from jlm_tpu.models.heads import (
+from jlm.config import Config, DSoftmaxConfig
+from jlm.models import init_params
+from jlm.models.heads import (
     full_softmax_loss,
     sample_log_uniform,
     sampled_softmax_loss,
 )
-from jlm_tpu.models.lstm import (
+from jlm.models.lstm import (
     forward_hidden,
     head_logits,
     initial_state,
     log_softmax,
     step_logp,
 )
-from jlm_tpu.oracle import OracleLM
-from jlm_tpu.ops.quant import quantize_params
+from jlm.oracle import OracleLM
+from jlm.ops.quant import quantize_params
 
 
 def test_step_matches_oracle(tiny_params, tiny_config):
@@ -149,35 +149,3 @@ def test_grad_flows_through_scan(tiny_params, tiny_config):
     )
     assert np.isfinite(gnorm) and gnorm > 0
 
-
-def test_forward_hidden_pallas_matches(tiny_params, tiny_config):
-    """Pallas fused scan (interpret) == XLA scan, values and grads."""
-    from jlm_tpu.models.lstm import forward_hidden_pallas
-
-    B, T = 4, 8
-    rng = np.random.default_rng(9)
-    ids = jnp.asarray(rng.integers(0, tiny_config.vocab_size, (B, T)), jnp.int32)
-    st = initial_state(tiny_config, B)
-    hs_r, st_r = forward_hidden(tiny_params, tiny_config, ids, st,
-                                precision="highest")
-    hs_p, st_p = forward_hidden_pallas(
-        tiny_params, tiny_config, ids, st, time_block=4, interpret=True
-    )
-    np.testing.assert_allclose(np.asarray(hs_p), np.asarray(hs_r), atol=1e-5)
-    np.testing.assert_allclose(np.asarray(st_p[0]), np.asarray(st_r[0]), atol=1e-5)
-
-    def loss_r(p):
-        hs, _ = forward_hidden(p, tiny_config, ids, st, precision="highest")
-        return jnp.sum(hs ** 2)
-
-    def loss_p(p):
-        hs, _ = forward_hidden_pallas(p, tiny_config, ids, st, time_block=4,
-                                      interpret=True)
-        return jnp.sum(hs ** 2)
-
-    g_r = jax.grad(loss_r)(tiny_params)
-    g_p = jax.grad(loss_p)(tiny_params)
-    np.testing.assert_allclose(
-        np.asarray(g_p["lstm"][0]["W"]), np.asarray(g_r["lstm"][0]["W"]),
-        atol=1e-4,
-    )

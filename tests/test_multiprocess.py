@@ -53,10 +53,10 @@ WORKER = textwrap.dedent(
             time.sleep(2.0 * (attempt + 1))
     assert len(jax.devices()) == 8 and len(jax.local_devices()) == 4
     import numpy as np
-    from jlm_tpu.config import Config
-    from jlm_tpu.data import build_vocab, encode_corpus, generate_corpus
-    from jlm_tpu.parallel.mesh import make_mesh
-    from jlm_tpu.train import Trainer
+    from jlm.config import Config
+    from jlm.data import build_vocab, encode_corpus, generate_corpus
+    from jlm.parallel.mesh import make_mesh
+    from jlm.train import Trainer
 
     cfg = Config(vocab_size=256, embed_size=16, hidden_size=32, batch_size=4,
                  num_steps=8, learning_rate=5e-3, seed=5,
@@ -73,13 +73,13 @@ WORKER = textwrap.dedent(
     # mesh; r2 only ever ran the sharded decode single-process (VERDICT r2
     # missing #3).  Same (data=2, vocab=4) mesh, Gloo collectives per frame,
     # results allgathered; every process asserts oracle parity.
-    from jlm_tpu.config import Config as _C
-    from jlm_tpu.data import Lexicon
-    from jlm_tpu.decoder.engine import BeamDecoder
-    from jlm_tpu.models.params import init_params
-    from jlm_tpu.oracle import OracleDecoder, OracleLM
-    from jlm_tpu.parallel.mesh import make_mesh as _mk
-    from jlm_tpu.parallel.sharded_head import (
+    from jlm.config import Config as _C
+    from jlm.data import Lexicon
+    from jlm.decoder.engine import BeamDecoder
+    from jlm.models.params import init_params
+    from jlm.oracle import OracleDecoder, OracleLM
+    from jlm.parallel.mesh import make_mesh as _mk
+    from jlm.parallel.sharded_head import (
         make_sharded_forward, shard_params,
     )
 
@@ -152,9 +152,9 @@ def test_two_process_training_matches_single(tmp_path):
     # single-process reference run (same seed/data/steps)
     import jax
 
-    from jlm_tpu.config import Config
-    from jlm_tpu.data import build_vocab, encode_corpus, generate_corpus
-    from jlm_tpu.train import Trainer, load_checkpoint
+    from jlm.config import Config
+    from jlm.data import build_vocab, encode_corpus, generate_corpus
+    from jlm.train import Trainer, load_checkpoint
 
     cfg = Config(vocab_size=256, embed_size=16, hidden_size=32, batch_size=4,
                  num_steps=8, learning_rate=5e-3, seed=5)

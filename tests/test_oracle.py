@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from jlm_tpu.config import EOS_ID, UNK_ID
-from jlm_tpu.decoder.lattice import build_lattice
-from jlm_tpu.oracle import OracleDecoder, OracleLM
-from jlm_tpu.ops.quant import dequantize_weight, quantize_params, quantize_weight
+from jlm.config import EOS_ID, UNK_ID
+from jlm.decoder.lattice import build_lattice
+from jlm.oracle import OracleDecoder, OracleLM
+from jlm.ops.quant import dequantize_weight, quantize_params, quantize_weight
 
 
 @pytest.fixture(scope="module")

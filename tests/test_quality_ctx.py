@@ -7,10 +7,10 @@ quality row; scripts/eval_quality.py runs the full-scale version).
 import numpy as np
 import pytest
 
-from jlm_tpu.config import Config
-from jlm_tpu.data.corpus import build_vocab
-from jlm_tpu.data.lexicon import Lexicon
-from jlm_tpu.data.synthetic_ctx import (
+from jlm.config import Config
+from jlm.data.corpus import build_vocab
+from jlm.data.lexicon import Lexicon
+from jlm.data.synthetic_ctx import (
     TOPICS,
     generate_corpus_ctx,
     generate_test_set_ctx,
@@ -18,13 +18,13 @@ from jlm_tpu.data.synthetic_ctx import (
     pool_probs,
     pool_reading_probs,
 )
-from jlm_tpu.eval.ceiling import bayes_ceiling_ctx, surface_posteriors_ctx
-from jlm_tpu.oracle.decoder import OracleDecoder
-from jlm_tpu.oracle.ngram import NgramLM, ngram_config
+from jlm.eval.ceiling import bayes_ceiling_ctx, surface_posteriors_ctx
+from jlm.oracle.decoder import OracleDecoder
+from jlm.oracle.ngram import NgramLM, ngram_config
 
 
 def test_pool_probs_normalized_and_topic_dependent():
-    from jlm_tpu.data.synthetic import _NOUNS
+    from jlm.data.synthetic import _NOUNS
 
     for topic in TOPICS:
         p = pool_probs(_NOUNS, topic)
@@ -85,7 +85,7 @@ def test_ngram_sequence_nll_sane():
     vocab = build_vocab(corpus, 50_000)
     lm1 = NgramLM(vocab, order=1).fit_lines(corpus, vocab)
     lm2 = NgramLM(vocab, order=2).fit_lines(corpus, vocab)
-    from jlm_tpu.data.corpus import encode_corpus
+    from jlm.data.corpus import encode_corpus
 
     ids = encode_corpus(corpus[:100], vocab)
     # a bigram fits its own training text at least as well as a unigram

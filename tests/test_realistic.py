@@ -12,9 +12,9 @@ import warnings
 import numpy as np
 import pytest
 
-from jlm_tpu.config import Config
-from jlm_tpu.data.lexicon import Lexicon
-from jlm_tpu.data.realistic import (
+from jlm.config import Config
+from jlm.data.lexicon import Lexicon
+from jlm.data.realistic import (
     generate_realistic_corpus,
     generate_realistic_lexicon,
     generate_realistic_test_set,
@@ -57,7 +57,7 @@ def test_packing_limits_under_real_density(real_vocab, real_lexicon):
     st = lattice_density_stats(kanas, real_lexicon, real_vocab, cfg)
     assert st["max_lookahead"] <= cfg.max_lookahead, st
     # default N=16 truncates under real density — loudly
-    from jlm_tpu.decoder.lattice import build_lattice
+    from jlm.decoder.lattice import build_lattice
 
     dense = max(kanas, key=len)
     with warnings.catch_warnings(record=True) as w:
@@ -95,9 +95,9 @@ def test_engine_decodes_real_density_exactly(real_vocab, real_lexicon):
     6-bit starts/cand idx) is exercised at real id magnitudes."""
     import jax
 
-    from jlm_tpu.decoder.engine import BeamDecoder
-    from jlm_tpu.models.params import init_params
-    from jlm_tpu.oracle import OracleDecoder, OracleLM
+    from jlm.decoder.engine import BeamDecoder
+    from jlm.models.params import init_params
+    from jlm.oracle import OracleDecoder, OracleLM
 
     cfg = Config(
         vocab_size=100_000, embed_size=32, hidden_size=64, beam_width=4,
@@ -119,7 +119,7 @@ def test_engine_decodes_real_density_exactly(real_vocab, real_lexicon):
 
 def test_corpus_roundtrip(real_vocab):
     """Corpus lines over the realistic lexicon encode without <unk>."""
-    from jlm_tpu.data.corpus import encode_corpus
+    from jlm.data.corpus import encode_corpus
 
     lines = generate_realistic_corpus(real_vocab, 50, seed=5)
     ids = encode_corpus(lines, real_vocab)

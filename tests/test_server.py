@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from jlm_tpu.config import Config, DSoftmaxConfig
-from jlm_tpu.decoder.engine import BeamDecoder
-from jlm_tpu.decoder.server import SessionServer
-from jlm_tpu.models import init_params
-from jlm_tpu.ops.quant import quantize_params
+from jlm.config import Config, DSoftmaxConfig
+from jlm.decoder.engine import BeamDecoder
+from jlm.decoder.server import SessionServer
+from jlm.models import init_params
+from jlm.ops.quant import quantize_params
 
 
 @pytest.fixture(scope="module")
@@ -85,8 +85,8 @@ def test_server_window_roll_long_session(tiny_params, lexicon, vocab):
     """200-kana sessions roll windows instead of crashing (VERDICT r3 weak
     #6: server.py hard-asserted at max_kana_len) and stay IDENTICAL to the
     single-session IncrementalDecoder across the rolls."""
-    from jlm_tpu.data import generate_test_set
-    from jlm_tpu.decoder.incremental import IncrementalDecoder
+    from jlm.data import generate_test_set
+    from jlm.decoder.incremental import IncrementalDecoder
 
     cfg = Config(
         vocab_size=256, embed_size=32, hidden_size=64, beam_width=4,
@@ -118,7 +118,7 @@ def test_server_suggest_next(server, batch_dec, tiny_params, tiny_config,
                              lexicon, vocab):
     """The batched step's piggybacked probes rank next kana per session
     identically to the single-session decoder's ranking."""
-    from jlm_tpu.decoder.incremental import IncrementalDecoder
+    from jlm.decoder.incremental import IncrementalDecoder
 
     inc = IncrementalDecoder(tiny_params, lexicon, vocab, tiny_config)
     sid = server.open()
@@ -170,10 +170,10 @@ def test_server_pallas_lse_matches(tiny_params, tiny_config, lexicon, vocab,
     """VERDICT r4 weak #5: the batched server step with the project_lse
     kernel normalizer (interpret mode) matches batch decoding exactly —
     no [E*B, V] logits materialization in the step."""
-    from jlm_tpu.decoder.server import SessionServer
+    from jlm.decoder.server import SessionServer
 
     srv = SessionServer(tiny_params, lexicon, vocab, tiny_config,
-                        max_sessions=4, use_pallas=True)
+                        max_sessions=4, use_pallas=True, interpret=True)
     s1, s2 = srv.open(), srv.open()
     text = {s1: "きょうは", s2: "あめがふ"}
     for i in range(4):

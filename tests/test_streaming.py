@@ -11,14 +11,14 @@ import os
 import numpy as np
 import pytest
 
-from jlm_tpu.data import (
+from jlm.data import (
     build_vocab,
     encode_corpus,
     generate_corpus,
     split_corpus,
 )
-from jlm_tpu.data.io import load_dataset
-from jlm_tpu.data.streaming import (
+from jlm.data.io import load_dataset
+from jlm.data.streaming import (
     build_vocab_file,
     encode_corpus_file,
     iter_line_chunks,
@@ -67,7 +67,7 @@ def test_streamed_encode_bit_identical(corpus_file, tmp_path, use_native,
                                        chunk_bytes):
     path, lines = corpus_file
     if use_native:
-        from jlm_tpu.native import encoder_lib
+        from jlm.native import encoder_lib
 
         if not encoder_lib.available():
             pytest.skip("no C++ toolchain")
@@ -95,7 +95,7 @@ def test_save_dataset_streamed_and_memmap_load(corpus_file, tmp_path):
 
 
 def test_memmap_feeds_bptt_batches(corpus_file, tmp_path):
-    from jlm_tpu.data.reader import bptt_batches
+    from jlm.data.reader import bptt_batches
 
     path, _ = corpus_file
     data_dir = str(tmp_path / "d2")
